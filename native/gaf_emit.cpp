@@ -8,7 +8,7 @@
 //
 // The device fill is the throughput side; this walker is the host-side
 // hot loop (one O(|alignment|) walk + string build per read), kept
-// native so GAF emission keeps up with the TPU engines.
+// native so GAF emission keeps up with the device engines.
 //
 // Exposed C ABI (ctypes):
 //   gaf_emit_poa(...)        -> bytes written into out (excl. NUL), <0 on error

@@ -1,11 +1,11 @@
-"""recgraph_tpu — a TPU-native sequence-to-variation-graph alignment engine.
+"""recgraph_tpu — a batched accelerator engine for sequence-to-variation-
+graph alignment.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of RecGraph
-(AlgoLab/RecGraph, reference mounted at /root/reference): exact POA,
-pathwise, and recombination alignment of reads against GFA variation
-graphs, emitting GAF.
+A JAX/XLA re-design of the capabilities of RecGraph (AlgoLab/RecGraph):
+exact POA, pathwise, and recombination alignment of reads against GFA
+variation graphs, emitting GAF.
 
-Layer map (TPU-first, not a port):
+Layer map:
 
 - ``io``       host parsing/serialisation: FASTA, GFA, GAF.
 - ``scoring``  dense substitution matrices (replaces HashMap<(char,char),i32>).
@@ -15,48 +15,52 @@ Layer map (TPU-first, not a port):
                the reference recurrences cell-by-cell.  These are the
                golden spec the device kernels are tested against, and the
                host-side traceback replayer reuses their emitters.
-- ``ops``      JAX / Pallas device kernels (row-scan DP over the graph
-               linearisation; the within-row "left" dependency is solved
-               with a cummax prefix scan instead of a scalar fixup loop).
+- ``ops``      device engines: XLA row-scan DP over the graph
+               linearisation (the within-row "left" dependency is solved
+               with a (max,+) prefix scan instead of a scalar fixup loop),
+               plus a CUDA kernel for the mode-1 fill on a GPU.
 - ``align``    batching, bucketing, device dispatch, host traceback.
 - ``parallel`` mesh / shard_map read-data-parallelism, multi-host gather.
 """
 
+import os
+
 __version__ = "0.1.0"
+
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def compile_cache_dir() -> str:
+    """Where the persistent XLA compilation cache lives.
+
+    ``JAX_COMPILATION_CACHE_DIR`` when it is set; otherwise a fixed
+    ``.jax_cache/`` at the checkout root (the path is part of the
+    cache key, so it must not move between runs).
+    """
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _CHECKOUT, ".jax_cache"
+    )
 
 
 def enable_compile_cache() -> None:
-    """Persistent XLA compilation cache for accelerator backends.
+    """Turn on the persistent XLA compilation cache on accelerators.
 
-    The r5 stretch-e2e phase breakdown showed ~95% of a cold 2k-read
-    production run is XLA compilation (61.2s of 63.1s wall on the
-    remote-compile path); the reference has no compile step at all.
-    A warm disk cache removes it for every run after the first.
-    Opt out with RECGRAPH_NO_COMPILE_CACHE=1; an explicitly configured
-    jax cache dir (flag or JAX_COMPILATION_CACHE_DIR) is respected.
+    A warm cache removes compilation from every run after the first.
+    CPU runs are not cached: XLA:CPU entries are pinned to the host's
+    CPU features.  With ``JAX_COMPILATION_CACHE_DIR`` set, jax already
+    points its cache there and no other directory is set here.
 
-    Called from the pipeline/API entry points, NOT at import: checking
-    the backend initialises XLA, which must not happen before
-    jax.distributed.initialize in multi-process runs.
+    Called from the pipeline/API entry points, NOT at import: asking
+    for the platform initialises the backend, which must not happen
+    before jax.distributed.initialize in multi-process runs.
     """
-    import os
+    import jax
 
-    if os.environ.get("RECGRAPH_NO_COMPILE_CACHE"):
+    from .ops.device import platform
+
+    if platform() == "cpu":
         return
-    try:
-        import jax
-
-        # CPU runs don't pay the remote-compile cost, and XLA:CPU AOT
-        # cache entries are machine-feature-pinned (cross-machine loads
-        # warn about SIGILL risk) — cache only accelerator backends.
-        if jax.default_backend() == "cpu":
-            return
-        if jax.config.jax_compilation_cache_dir is None:
-            cache = os.path.join(
-                os.path.expanduser("~"), ".cache", "recgraph_tpu", "xla"
-            )
-            jax.config.update("jax_compilation_cache_dir", cache)
-            jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:
-        pass
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)

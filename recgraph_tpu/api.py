@@ -33,7 +33,7 @@ def create_score_matrix_i32(match: int, mismatch: int) -> ScoreMatrix:
 def create_score_matrix_f32(match: float, mismatch: float) -> ScoreMatrix:
     """Mirrors api::create_score_matrix_f32 (api.rs:153-164).
 
-    The TPU engines are integer-exact, so the f32 variant shares the
+    The device engines are integer-exact, so the f32 variant shares the
     int table (the reference's f32 path exists only for its AVX2 SIMD).
     """
     return ScoreMatrix.match_mismatch(int(match), int(mismatch))

@@ -63,9 +63,6 @@ class GafWriter:
         self._created = False
 
     def write(self, gaf_line: str, number: int) -> None:
-        from .. import watchdog
-
-        watchdog.progress()  # every emitted record is pipeline progress
         number += self.number_offset
         if self.out_file == "standard output":
             print(gaf_line)

@@ -1,4 +1,4 @@
-"""Device (JAX/XLA/Pallas) compute engines.
+"""Device compute engines (JAX/XLA, and a CUDA kernel for the mode-1 fill).
 
 Layering:
 

@@ -32,25 +32,27 @@ class PoaDeviceGraph:
     pred_mask: jnp.ndarray   # bool[n, Pm]
     min_pred: jnp.ndarray    # int32[n]   fallback predecessor (min pred / i-1)
     r_values: jnp.ndarray    # int32[n]   distance-to-sink (utils.rs:103-126)
-    # compact predecessor-ring metadata: predecessors are always node
-    # *ends*, so a VMEM ring indexed by end rank needs only
-    # O(nodes-spanned) slots instead of O(rows-spanned) — erank[i] is
-    # row i's rank among end rows (-1 elsewhere), pred_rank the rank of
-    # each padded predecessor, compact_span the max number of ends
-    # written between a pred's ring write and its last read
+    # compact predecessor-ring metadata: predecessors of node-start rows
+    # are always node *ends*, so a ring of rows indexed by end rank needs
+    # only O(nodes-spanned) slots instead of O(rows-spanned) — erank[i]
+    # is row i's rank among end rows (-1 elsewhere), pred_rank the rank
+    # of each padded predecessor, compact_span the max number of ends
+    # written between a pred's ring write and its last read, n_ends the
+    # number of end rows (used by the CUDA mode-1 kernel)
     erank: jnp.ndarray       # int32[n]
     pred_rank: jnp.ndarray   # int32[n, Pm]
     sink_rows: tuple[int, ...]  # F's predecessor end positions, ascending
     n: int
     max_preds: int
     compact_span: int
+    n_ends: int
 
 
 jax.tree_util.register_dataclass(
     PoaDeviceGraph,
     data_fields=["codes", "node_start", "pred_idx", "pred_mask", "min_pred",
                  "r_values", "erank", "pred_rank"],
-    meta_fields=["sink_rows", "n", "max_preds", "compact_span"],
+    meta_fields=["sink_rows", "n", "max_preds", "compact_span", "n_ends"],
 )
 
 
@@ -127,6 +129,7 @@ def _build_poa_device_graph(g: PoaGraph) -> PoaDeviceGraph:
         n=n,
         max_preds=idx.shape[1],
         compact_span=compact_span,
+        n_ends=int(is_end.sum()),
     )
     return dg
 
@@ -188,9 +191,9 @@ def encode_reads(sequences: list[str], pad_to: int | None = None):
     """Pad '$'-prefixed reads into (codes int32[B, Lp], lengths int32[B]).
 
     Padding uses the 'N' code; all kernels mask to the per-read length.
-    Lp is rounded up to a multiple of 8: better lane alignment on TPU,
-    and it sidesteps an XLA-CPU fusion codegen crash on small odd
-    widths (fusion_compiler.cc RET_CHECK, seen at Lp=10).
+    Lp is rounded up to a multiple of 8, which sidesteps an XLA-CPU
+    fusion codegen crash on small odd widths (fusion_compiler.cc
+    RET_CHECK, seen at Lp=10).
     """
     from .. import scoring
 

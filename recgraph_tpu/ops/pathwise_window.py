@@ -4,8 +4,8 @@ The reference's pathwise DP is FULL-width (pathwise_alignment.rs:16 —
 it has no banding at all), so multi-kb reads cost O(n * L * P) memory
 and work.  This engine stores only W columns per (read, row), centred
 adaptively on the predecessor rows' best-scoring positions — the
-long-read treatment modes 0/2 already have (poa_engine windowed /
-pallas_*_win), extended to the pathwise recurrence.  This is
+long-read treatment modes 0/2 already have (the poa_engine and
+poa_gap_engine windowed fills), extended to the pathwise recurrence.  This is
 beat-the-reference capability: there is no reference semantics to pin
 against, so exactness is vs our own full-width engine
 (ops/pathwise_engine._fill_pathwise).

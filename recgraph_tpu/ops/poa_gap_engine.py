@@ -473,15 +473,13 @@ def _fill_gap_global_windowed(dg, table, seq, L, bta, o, e, W):
 _long_w_hint_gap: dict[int, int] = {}
 
 
-def fill_gap_global_long(dg, table, seq, L, bta, bta_max, o, e, g=None):
+def fill_gap_global_long(dg, table, seq, L, bta, bta_max, o, e):
     """Mode-2 fill for long reads: windowed rows with a W ladder.
 
     Mirrors ``poa_engine.fill_global_long``: start at the smallest W
     covering 2·bta plus drift slack (or the last W that worked for this
     graph), double until no read's band overflows, fall back to the
-    exact full-width fill at W >= Lp.  On TPU the windowed Pallas
-    kernel (pallas_gap_global_win) runs the ladder; the XLA windowed
-    engine is the CPU/fallback path.  Returns (score, last_row,
+    exact full-width fill at W >= Lp.  Returns (score, last_row,
     last_col_abs, packed, packed_x, packed_y, lefts, rights, ws | None);
     planes are [B, n, W].
     """
@@ -492,45 +490,6 @@ def fill_gap_global_long(dg, table, seq, L, bta, bta_max, o, e, g=None):
         while W < 2 * bta_max + 64:
             W *= 2
     oj, ej = jnp.int32(o), jnp.int32(e)
-    if (jax.default_backend() == "tpu" and g is not None
-            and o <= 0 and e <= 0):
-        from . import pallas_poa, pallas_gap_global_win
-        from .poa_engine import _pallas_batch_plan, _shard_map_fill
-
-        span = pallas_poa.max_pred_span(g)
-        smem_ok = dg.n * (dg.max_preds + 7) * 4 < 700_000
-        if span < 192 and smem_ok:
-            B = seq.shape[0]
-            mesh, (seq_p, L_p, bta_p), _ = _pallas_batch_plan((seq, L, bta))
-            Wp = W
-            while Wp < Lp:
-                fill = lambda s, l, b: pallas_gap_global_win.fill_gap_global_win(
-                    dg, table, s, l, b, int(o), int(e), Wp, span
-                )
-                if mesh is not None:
-                    fill = _shard_map_fill(
-                        mesh, fill, 3, (0, 0, 0, 1, 1, 1, 0, 0, 0, 0)
-                    )
-                try:
-                    out = fill(seq_p, L_p, bta_p)
-                    overflow = bool(jax.device_get(out[9].any()))
-                except Exception as exc:  # Mosaic VMEM cliff at this W
-                    import sys
-
-                    print(
-                        f"recgraph: windowed mode-2 Pallas kernel failed at "
-                        f"W={Wp} ({str(exc)[:80]}); using the XLA ladder",
-                        file=sys.stderr,
-                    )
-                    break
-                if not overflow:
-                    _long_w_hint_gap[dg.n] = Wp
-                    pk = jnp.moveaxis(out[3][:, :B], 0, 1)
-                    px = jnp.moveaxis(out[4][:, :B], 0, 1)
-                    py = jnp.moveaxis(out[5][:, :B], 0, 1)
-                    return (out[0][:B], out[1][:B], out[2][:B], pk, px, py,
-                            out[6][:B], out[7][:B], out[8][:B])
-                Wp *= 2
     while W < Lp:
         out = _fill_gap_global_windowed(dg, table, seq, L, bta, oj, ej, W=W)
         if not bool(jax.device_get(out[9].any())):
@@ -684,71 +643,17 @@ def _fill_gap_local(dg, table, seq, L, o, e):
 # ---------------------------------------------------------------------------
 
 
-def fill_gap_global_best(dg, table, seq, L, bta, o, e, g=None):
-    """Mode-2 fill through the fastest available backend.
-
-    Returns (score, last_row, last_col_abs, packed, packed_x, packed_y,
-    lefts, rights, batch_axis); planes are [B, n, Lp] (XLA, baxis 0) or
-    [n, B, Lpo] (Pallas, baxis 1 — band bounds ride lanes Lp/Lp+1).
-    """
-    if jax.default_backend() == "tpu" and g is not None and o <= 0 and e <= 0:
-        from . import pallas_gap_global
-        from .poa_engine import _pallas_batch_plan, _shard_map_fill
-
-        smem_ok = dg.n * (2 * dg.max_preds + 8) * 4 < 700_000
-        if dg.compact_span < 256 and smem_ok:
-            B, Lp = seq.shape
-            mesh, (seq, L, bta), _ = _pallas_batch_plan((seq, L, bta))
-            fill = lambda s, l, b: pallas_gap_global.fill_gap_global_v2(
-                dg, table, s, l, b, int(o), int(e)
-            )
-            if mesh is not None:
-                fill = _shard_map_fill(mesh, fill, 3, (0, 0, 0, 1, 1, 1))
-            sc, lr, lc, pk, px, py = fill(seq, L, bta)
-            lefts = jnp.moveaxis(pk[:, :, Lp], 0, 1)
-            rights = jnp.moveaxis(pk[:, :, Lp + 1], 0, 1)
-            return (sc[:B], lr[:B], lc[:B], pk[:, :B], px[:, :B], py[:, :B],
-                    lefts[:B], rights[:B], 1)
+def fill_gap_global(dg, table, seq, L, bta, o, e):
+    """Mode-2 fill: (score, last_row, last_col_abs, packed, packed_x,
+    packed_y, lefts, rights), planes [B, n, Lp]."""
     out = _fill_gap_global(dg, table, seq, L, bta, jnp.int32(o), jnp.int32(e))
-    return out[:8] + (0,)
+    return out[:8]
 
 
-def fill_gap_local_best(dg, table, seq, L, o, e, g=None):
-    """Mode-3 fill through the fastest available backend.
-
-    Returns (best_val, best_i, best_j, packed, packed_x, packed_y,
-    batch_axis); planes are [B, n, Lp] (XLA) or [n, B, Lpo] (Pallas).
-    """
-    if jax.default_backend() == "tpu" and g is not None and o <= 0 and e <= 0:
-        from . import pallas_gap_local
-        from .poa_engine import _pallas_batch_plan, _shard_map_fill
-
-        smem_ok = dg.n * (2 * dg.max_preds + 6) * 4 < 700_000
-        if dg.compact_span < 256 and smem_ok:
-            B = seq.shape[0]
-            mesh, (seq, L), _ = _pallas_batch_plan((seq, L))
-            # two reads per lane-row at the 64-granulated per-read
-            # width (same scheme as the mode-1 kernel)
-            S = -(-seq.shape[1] // 64) * 64
-            if seq.shape[1] != S:
-                from .. import scoring
-
-                seq = jnp.pad(
-                    seq, ((0, 0), (0, S - seq.shape[1])),
-                    constant_values=scoring.N,
-                )
-            # pack only when each shard's halved batch still tiles
-            per = seq.shape[0] // (mesh.size if mesh is not None else 1)
-            pack = 2 if per % 16 == 0 else 1
-            fill = lambda s, l: pallas_gap_local.fill_gap_local_v2(
-                dg, table, s, l, int(o), int(e), pack=pack
-            )
-            if mesh is not None:
-                fill = _shard_map_fill(mesh, fill, 2, (0, 0, 0, 1, 1, 1))
-            bv, bi, bj, pk, px, py = fill(seq, L)
-            return bv[:B], bi[:B], bj[:B], pk[:, :B], px[:, :B], py[:, :B], 1
-    out = _fill_gap_local(dg, table, seq, L, jnp.int32(o), jnp.int32(e))
-    return out + (0,)
+def fill_gap_local(dg, table, seq, L, o, e):
+    """Mode-3 fill: (best_val, best_i, best_j, packed, packed_x,
+    packed_y), planes [B, n, Lp]."""
+    return _fill_gap_local(dg, table, seq, L, jnp.int32(o), jnp.int32(e))
 
 
 def run_batch(mode, sequences, g, sm, o, e, btas) -> list[PoaState]:
@@ -764,7 +669,7 @@ def run_batch(mode, sequences, g, sm, o, e, btas) -> list[PoaState]:
         bta = encode_read_aux(btas)
         if seq.shape[1] >= LONG_READ_LP:
             out = fill_gap_global_long(
-                dg, table, seq, L, bta, max(btas), o, e, g
+                dg, table, seq, L, bta, max(btas), o, e
             )
             (score, last_row, last_col, packed, px, py, lefts, rights,
              ws) = jax.device_get(out)
@@ -785,22 +690,20 @@ def run_batch(mode, sequences, g, sm, o, e, btas) -> list[PoaState]:
             return states
         # XLA's CPU fusion codegen miscompiles this scan for tiny graphs
         # (fusion_compiler.cc RET_CHECK, n <= ~8); run those eagerly —
-        # they are test-sized anyway.  TPU is unaffected.
+        # they are test-sized anyway.
         import contextlib
 
-        tiny = jax.default_backend() == "cpu" and dg.n <= 16
+        from .device import platform
+
+        tiny = platform() == "cpu" and dg.n <= 16
         with jax.disable_jit() if tiny else contextlib.nullcontext():
-            out = fill_gap_global_best(dg, table, seq, L, bta, o, e, g)
-        baxis = out[8]
+            out = fill_gap_global(dg, table, seq, L, bta, o, e)
         score, last_row, last_col, packed, px, py, lefts, rights = (
-            jax.device_get(out[:8])
+            jax.device_get(out)
         )
         states = []
         for b in range(B):
-            if baxis == 1:
-                plane, plx, ply = packed[:, b], px[:, b], py[:, b]
-            else:
-                plane, plx, ply = packed[b], px[b], py[b]
+            plane, plx, ply = packed[b], px[b], py[b]
             st = _state_from_device(
                 score[b], last_row[b], last_col[b], plane, lefts[b], rights[b],
                 len(sequences[b]),
@@ -814,18 +717,14 @@ def run_batch(mode, sequences, g, sm, o, e, btas) -> list[PoaState]:
             states.append(st)
         return states
     if mode == 3:
-        out = fill_gap_local_best(dg, table, seq, L, o, e, g)
-        baxis = out[6]
-        score, best_i, best_j, packed, px, py = jax.device_get(out[:6])
+        out = fill_gap_local(dg, table, seq, L, o, e)
+        score, best_i, best_j, packed, px, py = jax.device_get(out)
         states = []
         for b in range(B):
             lb = len(sequences[b])
             lefts = np.zeros(dg.n, dtype=np.int32)
             rights = np.full(dg.n, lb, dtype=np.int32)
-            plane, plx, ply = (
-                (packed[:, b], px[:, b], py[:, b]) if baxis == 1
-                else (packed[b], px[b], py[b])
-            )
+            plane, plx, ply = packed[b], px[b], py[b]
             st = _state_from_device(
                 score[b], best_i[b], best_j[b], plane, lefts, rights, lb
             )

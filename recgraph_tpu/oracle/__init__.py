@@ -2,7 +2,7 @@
 
 Literal per-cell ports of every reference DP recurrence (cited per
 function).  Slow by design; used to (a) generate golden GAF outputs,
-(b) validate the vectorised JAX/Pallas kernels cell-by-cell, and
+(b) validate the vectorised device engines cell-by-cell, and
 (c) share traceback/GAF-emission code with the production host layer.
 """
 

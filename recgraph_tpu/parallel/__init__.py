@@ -1,9 +1,9 @@
-"""Multi-chip / multi-host scale-out.
+"""Multi-device / multi-host scale-out.
 
-The reference is single-threaded (SURVEY.md §2.3); the TPU-native
-parallelism model is read-data-parallelism: batches of padded reads are
-sharded over a 1-D device mesh axis ``reads`` with `shard_map`, the
-compiled graph arrays are replicated per chip, and per-read outputs
+The reference is single-threaded (SURVEY.md §2.3); the parallelism
+model here is read-data-parallelism: batches of padded reads are
+sharded over a 1-D device mesh axis ``reads``, the compiled graph
+arrays are replicated per device, and per-read outputs
 (scores, traceback planes) come back sharded for host-side GAF
 emission.  No gradient-style collectives are needed — reads are
 embarrassingly parallel; collectives only gather result metadata.

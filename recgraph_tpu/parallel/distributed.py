@@ -1,11 +1,17 @@
 """Multi-host scale-out: process groups + read sharding over hosts.
 
 The reference is a single process (SURVEY.md §2.3 — no MPI/NCCL
-anywhere); the TPU-native design shards *reads* across hosts over DCN
-and across chips over ICI:
+anywhere); this design shards *reads* across hosts and across the
+cards of each host:
 
-- each host process calls :func:`initialize` (jax.distributed) and
-  parses the same graph (replicated, it is small relative to HBM);
+- ONE process per host: it calls :func:`initialize` (jax.distributed)
+  and takes all of its host's local devices.  Two such processes on
+  one host would each reserve memory on every card (a JAX process
+  reserves most of a card's memory when it first uses it), so the
+  second would run out; split a host's cards between processes only
+  with ``CUDA_VISIBLE_DEVICES`` and ``XLA_PYTHON_CLIENT_MEM_FRACTION``;
+- each host parses the same graph (replicated, it is small relative to
+  device memory);
 - the read corpus is split contiguously per host by
   :func:`host_read_slice`; per-host batches run through the reads-mesh
   `shard_map` kernels (parallel.mesh) on the host's local chips;

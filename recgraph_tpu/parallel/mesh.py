@@ -6,9 +6,9 @@ axis.  An *active mesh* set here is picked up by ``ops.encode`` — read
 tensors are committed with a ``reads``-axis NamedSharding and the graph
 arrays/score table are replicated, so every jitted engine (modes 0-5,
 8/9 fills *and* the on-device walks) runs SPMD via XLA sharding
-propagation with no per-engine changes.  Pallas kernels, which GSPMD
-cannot partition, are wrapped in ``shard_map`` at their dispatch sites
-(ops.poa_engine.fill_*_best).
+propagation with no per-engine changes.  The CUDA mode-1 fill, a custom
+call that GSPMD cannot partition, is wrapped in ``shard_map`` at its
+dispatch site (ops.cuda_fill.fill_local).
 """
 
 from __future__ import annotations
@@ -48,9 +48,9 @@ def get_active_mesh() -> Mesh | None:
 def auto_mesh(min_devices: int = 2) -> Mesh | None:
     """A reads-mesh over this host's local devices, or None when
     single-device.  Local (not global) devices: multi-host runs shard
-    reads per host over DCN (parallel.distributed) and per chip over
-    ICI here — hosts never exchange device data, so each host meshes
-    only its own chips.  ``RECGRAPH_DP_DEVICES`` caps the device count
+    reads per host (parallel.distributed) and per card here — hosts
+    never exchange device data, so each host meshes only its own
+    cards.  ``RECGRAPH_DP_DEVICES`` caps the device count
     (e.g. to co-locate several jobs on one host)."""
     import os
 

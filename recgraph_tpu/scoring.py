@@ -1,7 +1,7 @@
 """Substitution score matrices as dense int32 tables.
 
 The reference keeps scores in ``HashMap<(char,char), i32>``
-(reference: src/score_matrix.rs).  On TPU we want a dense
+(reference: src/score_matrix.rs).  The device engines want a dense
 ``int32[7,7]`` lookup indexed by base codes, which XLA turns into a
 cheap gather.
 

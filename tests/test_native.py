@@ -138,7 +138,7 @@ def test_banded_baselines_match_engines(example_paths):
             g, sm, seqs, btas, repeats=1, gap=(o, e)
         )
         sc2 = np.asarray(
-            poa_gap_engine.fill_gap_global_best(dg, table, seq, L, bta, o, e, g)[0]
+            poa_gap_engine.fill_gap_global(dg, table, seq, L, bta, o, e)[0]
         )
         assert (sc2 == scores2).all(), mtx
 

@@ -1,6 +1,6 @@
 """The shared XLA-scan-body helpers (poa_engine.cummax_last /
 sub_planes / sub_row) must be drop-in equivalents of the ops they
-replace (see PERF.md "anti-patterns" for why they exist)."""
+replace."""
 
 import jax
 import jax.numpy as jnp
@@ -16,22 +16,6 @@ def test_cummax_last_matches_native():
         got = np.asarray(cummax_last(x))
         want = np.asarray(jax.lax.cummax(x, axis=x.ndim - 1))
         assert (got == want).all(), shape
-
-
-def test_cummax_last_manual_chain_matches_native():
-    # exercise the TPU (shift-max chain) branch explicitly, on CPU
-    import recgraph_tpu.ops.poa_engine as pe
-
-    orig = jax.default_backend
-    rng = np.random.default_rng(1)
-    x = jnp.asarray(rng.integers(-(1 << 20), 1 << 20, (3, 67)), jnp.int32)
-    want = np.asarray(jax.lax.cummax(x, axis=1))
-    try:
-        pe.jax.default_backend = lambda: "tpu"
-        got = np.asarray(pe.cummax_last(x))
-    finally:
-        pe.jax.default_backend = orig
-    assert (got == want).all()
 
 
 def test_sub_planes_row_matches_indexing():

@@ -123,64 +123,6 @@ def test_windowed_pipeline_byte_equal(long_corpus, monkeypatch):
     assert got_windowed == got_full
 
 
-def test_windowed_pallas_bit_exact(tmp_path):
-    """pallas_poa_global_win vs the full-width XLA engine (interpret).
-
-    Reads are '$'-prefixed as in production (the kernels' row-0
-    shortcut assumes sm('-', '$') == 0 at column 0).
-    """
-    from make_synthetic import make
-    from recgraph_tpu.ops import pallas_poa, pallas_poa_global_win
-
-    d = str(tmp_path)
-    make(d, n_back=200, n_reads=1, seed=13)
-    rng = random.Random(5)
-    walks, segs = {}, {}
-    for ln in open(os.path.join(d, "graph.gfa")):
-        f = ln.rstrip("\n").split("\t")
-        if f[0] == "P":
-            walks[f[1]] = [int(x[:-1]) for x in f[2].split(",")]
-        elif f[0] == "S":
-            segs[int(f[1])] = f[2]
-    reads = []
-    for _ in range(8):
-        w = walks[rng.choice(list(walks))]
-        s = "".join(segs[x] for x in w)
-        start = rng.randrange(max(1, len(s) - 620))
-        frag = s[start : start + 550]
-        reads.append(
-            "$" + "".join(
-                (rng.choice("ACGT") if rng.random() < 0.02 else c) for c in frag
-            )
-        )
-    import jax.numpy as jnp
-
-    parsed = gfa.parse_gfa(os.path.join(d, "graph.gfa"))
-    g = PoaGraph.from_gfa(parsed)
-    dg = poa_device_graph(g)
-    span = pallas_poa.max_pred_span(g)
-    sm = ScoreMatrix.create("none", 2, -4)
-    table = jnp.asarray(sm.table, dtype=jnp.int32)
-    seq, L = encode_reads(reads)
-    bta = encode_read_aux([60] * 8)
-    sc, lr, lc, pk, lf, rt = (
-        np.asarray(x) for x in poa_engine._fill_global(dg, table, seq, L, bta)
-    )
-    out = pallas_poa_global_win.fill_global_win(
-        dg, table, seq, L, bta, 384, span, Bt=8, interpret=True
-    )
-    sc2, lr2, lc2, pk2, lf2, rt2, ws2, over = (np.asarray(x) for x in out)
-    assert not over.any()
-    assert (sc == sc2).all() and (lr == lr2).all() and (lc == lc2).all()
-    assert (lf[:, : dg.n - 1] == lf2[:, : dg.n - 1]).all()
-    assert (rt[:, : dg.n - 1] == rt2[:, : dg.n - 1]).all()
-    for b in range(8):
-        for i in range(dg.n - 1):
-            l, r, w = lf[b, i], rt[b, i], ws2[b, i]
-            if r > l:
-                assert (pk[b, i, l:r] == pk2[i, b, l - w : r - w]).all(), (b, i)
-
-
 def test_windowed_gap_fill_bit_exact(long_corpus):
     """Mode-2 windowed fill (poa_gap_engine._fill_gap_global_windowed)
     vs the exact full-width affine engine: scores, bounds, and all
@@ -233,69 +175,3 @@ def test_windowed_gap_pipeline_byte_equal(long_corpus, monkeypatch):
         run(Options(sequence_path=reads_fa, graph_path=graph_gfa,
                     engine="jax", alignment_mode=2))
     assert got_windowed == buf.getvalue()
-
-
-def test_windowed_gap_pallas_bit_exact(tmp_path):
-    """pallas_gap_global_win vs the full-width XLA affine engine
-    (interpret): scores, bounds, and all three packed planes."""
-    from make_synthetic import make
-    from recgraph_tpu.ops import (
-        pallas_poa, pallas_gap_global_win, poa_gap_engine,
-    )
-
-    d = str(tmp_path)
-    make(d, n_back=200, n_reads=1, seed=13)
-    rng = random.Random(5)
-    walks, segs = {}, {}
-    for ln in open(os.path.join(d, "graph.gfa")):
-        f = ln.rstrip("\n").split("\t")
-        if f[0] == "P":
-            walks[f[1]] = [int(x[:-1]) for x in f[2].split(",")]
-        elif f[0] == "S":
-            segs[int(f[1])] = f[2]
-    reads = []
-    for _ in range(8):
-        w = walks[rng.choice(list(walks))]
-        s = "".join(segs[x] for x in w)
-        start = rng.randrange(max(1, len(s) - 620))
-        frag = s[start : start + 550]
-        reads.append(
-            "$" + "".join(
-                (rng.choice("ACGT") if rng.random() < 0.02 else c) for c in frag
-            )
-        )
-    import jax.numpy as jnp
-
-    parsed = gfa.parse_gfa(os.path.join(d, "graph.gfa"))
-    g = PoaGraph.from_gfa(parsed)
-    dg = poa_device_graph(g)
-    span = pallas_poa.max_pred_span(g)
-    sm = ScoreMatrix.create("none", 2, -4)
-    table = jnp.asarray(sm.table, dtype=jnp.int32)
-    seq, L = encode_reads(reads)
-    bta = encode_read_aux([60] * 8)
-    o, e = jnp.int32(-4), jnp.int32(-2)
-    sc, lr, lc, pk, px, py, lf, rt = (
-        np.asarray(x)
-        for x in poa_gap_engine._fill_gap_global(
-            dg, table, seq, L, bta, o, e
-        )[:8]
-    )
-    out = pallas_gap_global_win.fill_gap_global_win(
-        dg, table, seq, L, bta, -4, -2, 384, span, Bt=8, interpret=True
-    )
-    (sc2, lr2, lc2, pk2, px2, py2, lf2, rt2, ws2, over) = (
-        np.asarray(x) for x in out
-    )
-    assert not over.any()
-    assert (sc == sc2).all() and (lr == lr2).all() and (lc == lc2).all()
-    assert (lf[:, : dg.n - 1] == lf2[:, : dg.n - 1]).all()
-    assert (rt[:, : dg.n - 1] == rt2[:, : dg.n - 1]).all()
-    for b in range(8):
-        for i in range(dg.n - 1):
-            l, r, w = lf[b, i], rt[b, i], ws2[b, i]
-            if r > l:
-                for a, bb in ((pk, pk2), (px, px2), (py, py2)):
-                    assert (a[b, i, l:r] == bb[i, b, l - w : r - w]).all(), (
-                        b, i,
-                    )
